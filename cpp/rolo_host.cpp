@@ -2,8 +2,8 @@
 //
 // The reference is a C++ application whose ingest runs on PCL + the ROS
 // transport (sensor_msgs deserialization in roscpp, pcl::fromROSMsg at
-// /root/reference/src/imageProjection.cpp:179-263). In the TPU build the
-// device computes everything, but ingest stays native: this library decodes
+// imageProjection.cpp:179-263 of the reference). Here the device computes
+// everything, but ingest stays native: this library decodes
 // PCD / KITTI scans and ROS bag files, parses sensor_msgs/PointCloud2 and
 // nav_msgs/Odometry records, and runs a background prefetch queue (the
 // analog of the reference's multi-threaded spinner feeding callbacks,

@@ -1,4 +1,4 @@
-"""Layered configuration system for the TPU SLAM engine.
+"""Layered configuration system for the SLAM engine.
 
 Key-for-key re-design of the reference's ParamLoader
 (/root/reference/include/rolo/utility.h:145-432): every tunable the reference
@@ -7,7 +7,7 @@ with the same default. Instead of a parameter server, configs load from YAML
 (per-dataset files under configs/, same layering as reference config/*.yaml)
 with dotted-key overrides.
 
-Static *capacity* fields (max points, max keyframes, ...) are TPU additions:
+Static *capacity* fields (max points, max keyframes, ...) are additions:
 XLA needs fixed shapes, so every dynamic container in the reference becomes a
 fixed-capacity padded array here. Capacities live in `StaticConfig` so jitted
 functions can close over them as Python ints.
@@ -35,9 +35,8 @@ class SensorConfig:
     # Deskew ON by default (round-4 decision): with ESKF-sourced increments
     # and the translational correction, the 300-scan A/B measures keyframe
     # ATE 0.022 m (on) vs 0.108 m (off) at identical keyframe/loop/prior
-    # counts (AB_STUDY.json; the round-3 keyframe-collapse anomaly was an
-    # artifact of the pre-round-4 solve feedback and is gone). The
-    # reference deskews too (imageProjection.cpp:266-396) — False was the
+    # counts (the round-3 keyframe-collapse anomaly was an artifact of the
+    # pre-round-4 solve feedback and is gone). The reference deskews too (imageProjection.cpp:266-396) — False was the
     # conservative round-2 default while the increment source was unstable.
     deskew_enabled: bool = True
     scan_period: float = 0.1  # 10 Hz design point (imageProjection.cpp:79)
@@ -77,11 +76,11 @@ class RegistrationConfig:
     # reference binds once (the update_correspondences call inside
     # t3_linearize is commented out, rot_vgicp_impl.hpp:509-512), which
     # bounds per-scan translation recovery to ~the voxel-mean pull of the
-    # initial binding and leans on forward prediction. Rebinding is nearly
-    # free on TPU (hash gathers), so >1 round recovers large / cold-start
+    # initial binding and leans on forward prediction. A rebind is one more
+    # batch of voxel lookups, so >1 round recovers large / cold-start
     # translations; 1 reproduces the reference exactly.
     ct_rebind_rounds: int = 4
-    # Rotation/translation alternation rounds (TPU knob, no reference
+    # Rotation/translation alternation rounds (knob with no reference
     # analog — the reference runs one rotation then one translation solve,
     # lidarOdometry.cpp:448-501). At zero/cold initial guess the
     # rotation-only stage absorbs part of the unmodeled translation
@@ -90,7 +89,7 @@ class RegistrationConfig:
     alt_rounds: int = 2
     # Fine translation stage: after the polar CT solve, re-solve the
     # translation against a UNIFORM voxel map at this resolution with
-    # direct7 neighbors (TPU knob). The polar grid's 2 m radial bins are
+    # direct7 neighbors (no reference analog). The polar grid's 2 m radial bins are
     # built for rotation alignment; their voxel-mean quantization floors
     # translation accuracy at ~0.1-0.2 m. 0 disables (reference flow).
     ct_fine_resolution: float = 0.25
@@ -117,18 +116,18 @@ class MappingConfig:
     surrounding_keyframe_density: float = 2.0
     surrounding_keyframe_search_radius: float = 50.0
     surrounding_keyframe_recency_sec: float = 10.0  # backMapping.cpp:600-608
-    # Reference default is 30 (backMapping.cpp:692). On TPU the solve's
-    # <0.5 mm convergence test rarely fires before the cap (approx-kNN
-    # rebinds jitter the frozen correspondences at the sub-mm level), so
-    # the cap IS the iteration count; 16 keeps the same sim-run ATE at
-    # half the backend cost (see AB_DEFAULTS.json).
+    # Reference default is 30 (backMapping.cpp:692). The solve's <0.5 mm
+    # convergence test rarely fires before the cap (kNN rebinds jitter the
+    # frozen correspondences at the sub-mm level), so the cap IS the
+    # iteration count; 16 kept the same sim-run ATE at half the backend
+    # iterations in a 200-scan A/B.
     scan2map_max_iterations: int = 16
     # Iterations between correspondence re-searches in scan2map. The
-    # reference rebinds every iteration (=1); the 5-NN is >80% of the TPU
-    # iteration cost while mapping refinement moves the pose sub-cm
-    # (TPU knob). AB_DEFAULTS.json grid: keyframe ATE 0.0238 (rebind 1) /
-    # 0.0232 (5) / 0.0217 (10) — cadence-insensitive on the 200-scan
-    # study, so ship the cheapest.
+    # reference rebinds every iteration (=1); the 5-NN dominates the
+    # iteration cost while mapping refinement moves the pose sub-cm (no
+    # reference analog). A 200-scan sim A/B gave keyframe ATE 0.0238 m
+    # (rebind 1) / 0.0232 (5) / 0.0217 (10) — cadence-insensitive, so ship
+    # the cheapest.
     scan2map_rebind_every: int = 10
     degeneracy_eigen_threshold: float = 100.0  # backMapping.cpp:1006-1035
     # Submap assembly keeps the nearest N eligible keyframes (the fixed-size
@@ -137,21 +136,19 @@ class MappingConfig:
     # covers a ~16 m neighborhood — far beyond the <1 m correspondence
     # gate of the scan2map factors.
     surrounding_keyframe_max_nearby: int = 32
-    # Approximate k-NN (lax.approx_min_k, recall ~0.95) in the scan2map
-    # binds and loop/prior ICP correspondence search: a >10x TPU speedup
-    # over exact row-wide top-k; the 5-point line/plane fits and the
-    # fitness gates absorb the recall loss (TPU knob, no reference analog).
+    # k-NN selector of the scan2map binds and the prior ICP correspondence
+    # search: lax.approx_min_k (True) or lax.top_k (False). On the GPU and
+    # the CPU XLA lowers approx_min_k to an exact selection, so both give
+    # the same neighbours there; they differ only in speed (no reference
+    # analog).
     approx_knn: bool = True
     # Candidate-set rebinding in scan2map: the full-submap k-NN runs once
     # per solve with this many neighbors; rebinds re-rank the candidates.
-    # 0 = full search on the rebind schedule (TPU knob, no reference
-    # analog). Default 0: measured on TPU at production shapes, the
-    # re-rank's [N, C] gather costs MORE than a full approx_min_k search
-    # (31 vs 22 ms at 12k x 64k), so candidate reuse is a pessimization —
-    # kept for experimentation only.
+    # 0 = full search on the rebind schedule (no reference analog).
+    # Default 0; kept for experimentation only.
     scan2map_candidates: int = 0
     # Host cadence (sim-time s) for dispatching the pose-graph re-solve
-    # when loop/prior programs have run since the last solve (TPU knob, no
+    # when loop/prior programs have run since the last solve (no
     # reference analog — the reference solves on every keyframe,
     # backMapping.cpp:1115). The solve is a pure async dispatch (bucket
     # from the host-side mapping-step count, no device fetch); corrections
@@ -182,14 +179,13 @@ class LoopConfig:
     sc_search_ratio: float = 0.1
     sc_dist_threshold: float = 0.4
     sc_lidar_height: float = 2.0
-    # ICP-verification cloud capacities (TPU addition, no reference
-    # analog — pcl::ICP takes whatever loopFindNearKeyframes produces).
-    # The verification ICP's per-iteration cost is src x tgt; at the old
-    # 16384 x 32768 shapes one loop_closure_step held the device ~450 ms,
-    # blowing the 100 ms scan-latency budget whenever a loop fired
-    # (BENCH_LATENCY.json spikes). 4096 x 16384 keeps verification
-    # accuracy (fitness over thousands of downsampled points) at ~1/8 the
-    # cost; raise if loops start failing the fitness gate on sparse maps.
+    # ICP-verification cloud capacities (no reference analog — pcl::ICP
+    # takes whatever loopFindNearKeyframes produces). The verification
+    # ICP's per-iteration cost is src x tgt; 4096 x 16384 keeps
+    # verification accuracy (fitness over thousands of downsampled points)
+    # at 1/8 the work of 16384 x 32768, whose loop_closure_step blew the
+    # 100 ms scan-latency budget whenever a loop fired; raise if loops
+    # start failing the fitness gate on sparse maps.
     icp_src_capacity: int = 4096
     icp_tgt_capacity: int = 16384
 
@@ -218,13 +214,13 @@ class PriorConfig:
     max_iters: int = 60
     lm_lambda: float = 1e-2
     # Reference defaults are 1e-12 / 1e-10 (prior_pose_params.yaml), sized
-    # for the f64 Eigen solver; the f32 TPU solver bottoms out near 1e-8
+    # for the f64 Eigen solver; the f32 solver here bottoms out near 1e-8
     # cost deltas, so these are rescaled to keep the same "converged within
     # max_iters" semantics (PoseSolver::Solve, pose_solver.cpp:467-471).
     tol_cost: float = 1e-8
     # 1e-5 rejects ~half of otherwise-good solves in f32: LM steps on
     # meter-scale z bottom out at ~1e-5..1e-4 (measured fail_conv 28/61
-    # prior ticks on the sim diagnostic, tools/diag_prior.py); the
+    # prior ticks on a sim diagnostic); the
     # roll/pitch/wheel-distance FailureDetection gates still reject bad
     # solutions after convergence.
     tol_step: float = 1e-4
@@ -269,13 +265,13 @@ class FilterConfig:
     # (lidarOdometry.cpp:259 predictTimerHandler)
     propagate_step_dt: float = 0.2
     propagate_horizon_m: float = 8.0
-    propagate_max_steps: int = 64  # static rollout capacity (TPU addition)
+    propagate_max_steps: int = 64  # static rollout capacity (no reference analog)
 
 
 @dataclass(frozen=True)
 class StaticConfig:
-    """Fixed array capacities for XLA static shapes (TPU-specific; no
-    reference analog — the reference uses std::vector everywhere)."""
+    """Fixed array capacities for XLA static shapes (no reference
+    analog — the reference uses std::vector everywhere)."""
 
     max_raw_points: int = 65536  # >= n_scan * horizon_scan for the main configs
     max_extracted_points: int = 32768
@@ -284,9 +280,8 @@ class StaticConfig:
     # Front-end feature capacity: sized for the main 32-beam/1024-col
     # config (observed ~5.5k valid features/scan; concat_clouds compacts
     # valid-first and truncates overflow). Dense sensors (Ouster-64@2048)
-    # raise this via the per-dataset tpu: config namespace. Join/linearize
-    # cost scales with capacity^2, so headroom is not free (16384 -> 8192
-    # halves the front-end step).
+    # raise this via the per-dataset tpu: config namespace. Covariance and
+    # linearize cost grow with capacity, so headroom is not free.
     max_feature_points: int = 8192  # corner + surf stacked
     max_voxels: int = 8192
     max_keyframes: int = 2048
@@ -424,8 +419,9 @@ def _apply_namespace(cfg: RoloConfig, ns: dict) -> RoloConfig:
             sections["prior"]["rot_diff_tolerance_rad"] = float(value) * math.pi / 180.0
         elif key in _PRIOR_FACTOR_KEYMAP:
             sections["prior"][_PRIOR_FACTOR_KEYMAP[key]] = value
-    # TPU-specific namespace (no reference analog): sections by python field
-    # name, e.g. tpu: {static: {max_raw_points: 16384}, registration: {...}}.
+    # Capacity/knob namespace `tpu:` (its historical name; no reference
+    # analog): sections by python field name,
+    # e.g. tpu: {static: {max_raw_points: 16384}, registration: {...}}.
     # Unknown sections/fields are loud errors — silent typos in capacity
     # configs would otherwise surface as OOMs or truncation much later.
     tpu_ns = ns.get("tpu", {}) or {}

@@ -1,7 +1,7 @@
 """State estimation: manifold pose ESKF + odometry fusion + the generic
 manifold-EKF toolkit.
 
-TPU-native equivalent of the reference's PoseESEKF / IKFoM stack
+JAX equivalent of the reference's PoseESEKF / IKFoM stack
 (/root/reference/include/rolo/eskf/) and TransformFusion
 (/root/reference/src/lidarOdometry.cpp:47-323). `manifold` is the generic
 IKFoM analog (declare any vect/SO3/S2 composition; Jacobians by autodiff

@@ -1,4 +1,4 @@
-"""Manifold pose error-state Kalman filter (ESKF), TPU-native.
+"""Manifold pose error-state Kalman filter (ESKF), in JAX.
 
 Re-design of the reference's PoseESEKF
 (/root/reference/include/rolo/eskf/eskf.hpp) and the parts of the vendored

@@ -1,6 +1,6 @@
 """Generic iterated error-state EKF on manifold compositions.
 
-TPU-native re-design of the vendored IKFoM toolkit the reference ships
+JAX re-design of the vendored IKFoM toolkit the reference ships
 (/root/reference/include/rolo/eskf/IKFoM_toolkit/): MTK's manifold
 primitives (vect / SO3 / S2, mtk/types/*.hpp), the MTK_BUILD_MANIFOLD
 macro (mtk/build_manifold.hpp) and esekfom::esekf's predict /

@@ -1,7 +1,7 @@
 """Front-end scan-to-scan odometry: forward prediction + rotation
 registration + continuous-time translation + pose integration.
 
-TPU-native re-design of LidarOdometry
+JAX re-design of LidarOdometry
 (/root/reference/src/lidarOdometry.cpp:325-713) as a pure
 `scan_step(state, scan) -> (state, output)` function, lax.scan-compatible so
 whole sequences run inside one jitted program and many sequences batch with

@@ -1,6 +1,6 @@
 """SE(3) rigid transforms as (R, t) pairs over jnp arrays.
 
-TPU-native replacement for the reference's Eigen::Isometry3d plumbing and the
+JAX replacement for the reference's Eigen::Isometry3d plumbing and the
 rotation-first se3 expmap (/root/reference/include/rot_gicp/so3/so3.hpp:80-104).
 
 A transform is represented as a pair of arrays (rot [..., 3, 3], trans

@@ -1,6 +1,6 @@
 """SO(3) primitives: skew, exponential/log maps, quaternion utilities.
 
-TPU-native re-design of the reference's Sophus-derived helpers
+JAX re-design of the reference's Sophus-derived helpers
 (/root/reference/include/rot_gicp/so3/so3.hpp:9-104 and the MTK SO3 type
 include/rolo/eskf/IKFoM_toolkit/mtk/types/SOn.hpp). Everything here is pure
 jnp, shape-polymorphic over leading batch dims, and safe to vmap/jit.

@@ -1,6 +1,6 @@
 """Pose-graph factor containers (fixed-capacity, masked).
 
-TPU-native replacement for the reference's GTSAM factor plumbing
+JAX replacement for the reference's GTSAM factor plumbing
 (/root/reference/src/backMapping.cpp:1224-1284): the odometry chain, the
 first-pose prior, and between-factor queues for loop closures and
 ground-contact priors. Factors are stored as parallel arrays so the solver

@@ -1,15 +1,15 @@
 """Batched pose-graph Gauss-Newton with preconditioned CG.
 
 The GTSAM/iSAM2 replacement (SURVEY.md section 7): instead of incremental
-Bayes-tree relinearization (deeply sequential, pointer-heavy — hostile to
-TPUs), every solve is a full Gauss-Newton relinearization over all poses:
+Bayes-tree relinearization (deeply sequential, pointer-heavy — no
+fixed-shape form), every solve is a full Gauss-Newton relinearization over all poses:
   - residual per between factor: e = Log(Z^{-1} T_i^{-1} T_j)   (GTSAM
     BetweenFactor convention, tangent order (w, t)),
   - exact per-factor 6x6 Jacobians via vmapped jax.jacrev at zero
     right-perturbation,
   - normal equations solved matrix-free with block-Jacobi preconditioned CG
     (the Hessian is never materialized; matvecs are factor gather/scatters
-    that map to TPU-friendly segment ops and psum under sharding),
+    that map to segment ops and psum under sharding),
   - Cauchy IRLS weights for robust (loop) factors, matching
     noiseModel::Robust(Cauchy(k), ...) (backMapping.cpp:2464-2476).
 
@@ -175,7 +175,7 @@ def _chain_factor(diag: jnp.ndarray, offdiag: jnp.ndarray) -> jnp.ndarray:
     """Block-Thomas factorization of the tridiagonal part of H:
     S_0 = D_0, S_f = D_f - B_f^T S_{f-1}^{-1} B_f. Returns S^{-1} [K,6,6].
 
-    This is the TPU replacement for a sparse Cholesky of the chain: a
+    This is the fixed-shape replacement for a sparse Cholesky of the chain: a
     lax.scan of 6x6 ops. With the chain solved exactly, PCG only has to
     correct for the (low-rank) loop/prior factors, so its iteration count
     scales with the number of loops, not the pose count — the block-Jacobi
@@ -226,7 +226,7 @@ def _dense_hessian(blocks: FactorBlocks, k: int, damping, active: jnp.ndarray) -
     """Materialize H = J^T W J as a dense [6K, 6K] matrix.
 
     The factor 6x6 blocks scatter-add into a [K*K, 6, 6] block grid which
-    reshapes to the dense matrix — one big MXU-friendly object instead of
+    reshapes to the dense matrix — one big matmul-shaped object instead of
     the matrix-free gather/scatter matvec. Inactive poses (index >= count)
     get an identity diagonal so the Cholesky stays SPD and their update is
     exactly zero (their gradient rows are zero)."""
@@ -238,10 +238,9 @@ def _dense_hessian(blocks: FactorBlocks, k: int, damping, active: jnp.ndarray) -
     hjj = jnp.einsum("fki,fkj->fij", blocks.jac_j, wj_j)
     hij = jnp.einsum("fki,fkj->fij", blocks.jac_i, wj_j)
 
-    # Scatter layout [36, K*K]: the block-entry axis rides the sublane dim
-    # and K*K the lane dim, so TPU tiling pads ~1x. (A [K*K, 6, 6] layout
-    # pads its (6, 6) minor dims to (8, 128) tiles — a 28x HBM blowup that
-    # made assembly memory-bound and OOM'd at K=2048.)
+    # Scatter layout [36, K*K]: K*K is the innermost dim, so no layout pads
+    # a 6-wide dim. (A [K*K, 6, 6] layout pads its (6, 6) minor dims on
+    # tiled layouts — it made assembly memory-bound and OOM'd at K=2048.)
     f = hii.shape[0]
     idx = jnp.concatenate([
         blocks.i * k + blocks.i,
@@ -317,9 +316,9 @@ def _bcr_solve(d: jnp.ndarray, e: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
     """Solve T X = B for SPD block-tridiagonal T by block cyclic
     reduction: eliminate all odd-indexed nodes at once, recurse on the
     half-size even-node system — O(log K) levels of BATCHED 6x6 ops, the
-    TPU-parallel replacement for both a sparse Cholesky (sequential
-    panels) and the chain Thomas scan (K serialized 6x6 steps; measured
-    latency-bound on TPU, see the `preconditioner="chain"` note). Exact
+    parallel replacement for both a sparse Cholesky (sequential panels)
+    and the chain Thomas scan (K serialized 6x6 steps, latency-bound; see
+    the `preconditioner="chain"` note). Exact
     up to f32 rounding — cyclic reduction is block Gaussian elimination
     in a nested-dissection order, stable for the damped SPD systems here.
 
@@ -374,9 +373,8 @@ def _bcr_step(blocks: FactorBlocks, k: int, damping, active, g) -> jnp.ndarray:
     odometry chain (solved exactly by `_bcr_solve`) and V the loop/prior
     factor columns; H^-1 b = T^-1 b - T^-1 V (I + V^T T^-1 V)^-1 V^T T^-1 b.
     Replaces the [6K, 6K] dense Cholesky whose cost grows ~cubically with
-    the bucket (measured 42/66/217/815 ms at K=256/512/1024/2048 on v5e,
-    BENCH_LATENCY.json) with O(K log K) batched small ops + one dense
-    [R, R] solve, R = 6 * (loop+prior capacity)."""
+    the bucket with O(K log K) batched small ops + one dense [R, R] solve,
+    R = 6 * (loop+prior capacity)."""
     d, e, v = _chain_parts(blocks, k, damping, active)
     b = (-g * active)[:, :, None]
     x = _bcr_solve(d, e, jnp.concatenate([b, v], axis=2))
@@ -404,10 +402,10 @@ def solve_pose_graph(
     preconditioner: str = "chain",
     method: str = "pcg",
 ) -> GraphSolution:
-    # TPU matmuls default to bf16 multiplication; the Hessian entries span
-    # ~1e0..1e6 (info weights), so bf16 assembly makes H asymmetric by O(100)
-    # and the dense Cholesky garbage. Full f32 throughout (the same fix as
-    # the voxel-join kernels, ops/voxel_join.py).
+    # Reduced-precision matmuls (bf16 or TF32 products) are fatal here: the
+    # Hessian entries span ~1e0..1e6 (info weights), so a 8-10-bit mantissa
+    # makes H asymmetric by O(100) and the dense Cholesky garbage. Full f32
+    # throughout, whatever the process-wide default.
     with jax.default_matmul_precision("float32"):
         return _solve_pose_graph_impl(
             graph, rot, trans, count, gn_iterations, cg_iterations, cg_tol,
@@ -441,10 +439,9 @@ def _solve_pose_graph_impl(
     reduction on the odometry chain + Woodbury for loop/prior factors
     (see _bcr_step) — O(K log K) batched 6x6 work, the default for large
     buckets. "dense" materializes H and solves by blocked Cholesky — one
-    MXU-sized factorization instead of thousands of tiny sequential ops;
-    on TPU this is ~100x faster than PCG for K <= 2048 (the chain
-    preconditioner's three lax.scans serialize 6x6 matvecs, which is
-    latency-bound). "pcg" keeps the matrix-free path (useful when K*6 is
+    large factorization instead of thousands of tiny sequential ops (the
+    chain preconditioner's three lax.scans serialize 6x6 matvecs, which
+    is latency-bound). "pcg" keeps the matrix-free path (useful when K*6 is
     too large to materialize, and as an independent cross-check).
 
     preconditioner (pcg only): "chain" (block-tridiagonal Thomas solve of

@@ -1,6 +1,6 @@
 """Loop closure: scan-context place recognition + ICP-verified factors.
 
-TPU-native equivalent of the reference's SCManager
+JAX equivalent of the reference's SCManager
 (/root/reference/include/scancontext/Scancontext.h) and backMapping's
 loop-closure thread (/root/reference/src/backMapping.cpp:1904-2677).
 """

@@ -1,6 +1,6 @@
 """Loop-closure candidate search, submap assembly, and ICP verification.
 
-TPU-native re-design of backMapping's loop-closure thread
+JAX re-design of backMapping's loop-closure thread
 (/root/reference/src/backMapping.cpp:1904-1927, 2307-2624):
 
   - detectLoopClosureDistance (:2481-2515): nearest keyframe within the
@@ -14,7 +14,7 @@ TPU-native re-design of backMapping's loop-closure thread
     assembly used here is the drift-equivalent standard form),
   - ICP verification (:2430-2443): masked point-to-point ICP with
     SVD/Kabsch re-estimation per iteration (pcl::IterativeClosestPoint
-    analog — correspondence search is a chunked MXU distance matrix),
+    analog — correspondence search is a chunked distance matrix),
   - factor construction (:2368-2393): rel = poseFrom^{-1} poseTo with
     poseFrom = correction * T_cur, poseTo = T_prev, isotropic variance =
     ICP fitness; SC loops additionally get a Cauchy(1.0) robust kernel
@@ -118,8 +118,7 @@ def icp_point2point(
     # |delta| stalling in the 1e-5..1e-4 band). 1e-4 (0.1 mm / 0.1 mrad)
     # is the f32 equivalent of "stopped moving" at lidar coordinate
     # scale: measured exit at 14 iterations with the same fitness to 4
-    # significant digits (0.12195 vs 0.12197), cutting loop_closure_step
-    # from 126 to 83 ms.
+    # significant digits (0.12195 vs 0.12197) instead of burning all 100.
     transformation_epsilon: float = 1e-4,
     chunk: int = 512,
     approx_knn: bool = False,

@@ -1,4 +1,4 @@
-"""Scan Context global place-recognition descriptors, TPU-native.
+"""Scan Context global place-recognition descriptors, in fixed shapes.
 
 Re-design of the vendored SCManager
 (/root/reference/include/scancontext/Scancontext.h:58-114,
@@ -8,7 +8,7 @@ Re-design of the vendored SCManager
     (makeScancontext, Scancontext.cpp:151-195) -> a masked scatter-max,
   - ring key: rowwise mean (makeRingkeyFromScancontext :198-211) -> the
     rotation-invariant retrieval key; the reference's nanoflann kd-tree
-    (rebuilt every 10 queries) becomes a dense MXU distance matrix + top-k,
+    (rebuilt every 10 queries) becomes a dense distance matrix + top-k,
     which is exact and needs no rebuild cadence,
   - sector key: colwise mean (makeSectorkeyFromScancontext :214-227) for
     fast yaw alignment via exhaustive circular shift
@@ -60,8 +60,8 @@ def make_descriptor(
 
     flat = ring.astype(jnp.int32) * num_sector + sector.astype(jnp.int32)
     n_bins = num_ring * num_sector
-    # Scatter-free bin max (TPU: a 32k scatter-max serializes, ~5 ms/scan;
-    # this sort + searchsorted form is ~4x faster and exact): lex-sort by
+    # Scatter-free bin max (exact, and free of a 32k-element scatter-max):
+    # lex-sort by
     # (bin, -z) so each bin's run starts at its max, then binary-search the
     # run start per bin. Invalid points sort into a sentinel bin past the
     # end.

@@ -1,6 +1,6 @@
 """Keyframe database as preallocated ring-buffered arrays.
 
-TPU-native re-design of backMapping's keyframe state
+JAX re-design of backMapping's keyframe state
 (/root/reference/src/backMapping.cpp:115-122: cloudKeyPoses3D/6D +
 cornerCloudKeyFrames/surfCloudKeyFrames): fixed-capacity arrays with a
 count, so submap assembly is a masked gather instead of pointer chasing,

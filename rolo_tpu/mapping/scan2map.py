@@ -1,7 +1,7 @@
 """Scan-to-submap Gauss-Newton alignment with LOAM point-to-line /
 point-to-plane factors and degeneracy projection.
 
-TPU-native re-design of backMapping's scan2MapOptimization
+JAX re-design of backMapping's scan2MapOptimization
 (/root/reference/src/backMapping.cpp:681-1068):
   - cornerOptimization (:720-824): 5-NN + PCA line fit -> point-to-line
     residual with the 1 - 0.9|d| weight,
@@ -10,7 +10,7 @@ TPU-native re-design of backMapping's scan2MapOptimization
   - LMOptimization (:929-1057): 6-dof Gauss-Newton on (roll,pitch,yaw,x,y,z)
     with eigenvalue-thresholded degeneracy projection (:1006-1035).
 
-kd-trees are replaced by chunked MXU brute-force 5-NN; the per-point
+kd-trees are replaced by chunked brute-force 5-NN; the per-point
 camera-coordinate trig Jacobian of the reference is replaced by the
 equivalent analytic dR/d(angle) contraction (same derivative, lidar frame).
 """
@@ -182,8 +182,8 @@ def surf_bind(
 
     # plane fit: solve A n = -1 (5x3 least squares via normal equations).
     # solve_psd is the unrolled closed-form Cholesky — a jnp.linalg.solve
-    # here lowers to XLA's tiny-matrix LU kernel, which ran serially per
-    # matrix and cost ~14 ms of the ~15.6 ms scan2map bind at [12288,3,3].
+    # here lowers to XLA's batched tiny-matrix LU kernel, which dominated
+    # the scan2map bind at [12288,3,3] on the accelerator it was tuned on.
     ata = jnp.einsum("nki,nkj->nij", neigh, neigh)
     atb = -jnp.sum(neigh, axis=1)
     n_vec = solve_psd(ata, atb)  # [N, 3]
@@ -281,10 +281,10 @@ def scan2map_optimize(
     order [roll,pitch,yaw] / [x,y,z]).
 
     rebind_every: iterations between correspondence re-searches. The
-    reference re-runs the 5-NN every iteration (rebind_every=1); the kNN is
-    >80% of the iteration cost on TPU while the pose moves sub-cm between
-    mapping refinement steps, so binding every few iterations buys a ~4x
-    backend speedup at equal linearization count. The line/plane fits are
+    reference re-runs the 5-NN every iteration (rebind_every=1); the kNN
+    dominates the iteration cost while the pose moves sub-cm between
+    mapping refinement steps, so binding every few iterations saves most
+    of it at equal linearization count. The line/plane fits are
     frozen with their bindings (they depend only on the bound neighbors).
 
     n_candidates: when > 5, the full-submap search runs ONCE at the initial

@@ -1,8 +1,7 @@
 """Closed-form symmetric 3x3 eigendecomposition.
 
-XLA's `jnp.linalg.eigh` lowers to an iterative QR/Jacobi loop that is
-catastrophically slow on TPU for large batches of tiny matrices (~900 ms
-for 256k 3x3s on v5e — measured). Every 3x3 spectral op in this codebase
+XLA's `jnp.linalg.eigh` lowers to an iterative QR/Jacobi loop, a poor fit
+for large batches of tiny matrices. Every 3x3 spectral op in this codebase
 (covariance regularization rot_vgicp_impl.hpp:458-492, corner-line PCA
 backMapping.cpp:741-762, ground plane fits pose_solver.cpp:326-353) runs
 over 10^4..10^5 matrices per scan, so they use this analytic path instead:

@@ -1,11 +1,9 @@
-"""Structure-of-arrays symmetric 3x3 toolkit for TPU hot paths.
+"""Structure-of-arrays symmetric 3x3 toolkit for the hot paths.
 
-TPU arrays tile as (8 sublanes, 128 lanes) on the two minor dims, so a
-batch of tiny matrices stored [N, 3, 3] pads its 3-wide minor dim to 128
-lanes — a ~43x HBM inflation that made the reference-shaped einsum
-linearizations (registration/gicp.py) memory-bound. This module stores a
-symmetric 3x3 batch as six [..., N] component planes (N in the lane dim,
-zero padding waste) and provides the closed-form ops the rot-GICP pipeline
+A batch of tiny matrices stored [N, 3, 3] puts a 3-wide dim innermost,
+which accelerator layouts pad and vector units use poorly. This module
+stores a symmetric 3x3 batch as six [..., N] component planes (N
+innermost, no padding waste) and provides the closed-form ops the rot-GICP pipeline
 needs: matvec, congruence R C R^T, adjugate inverse, quadratic forms, and
 the smallest-eigenvector PLANE regularizer.
 

@@ -1,44 +1,23 @@
-"""MXU keyed matmul: one-hot joins and segment reductions as matrix
-multiplies — the TPU-native replacement for both per-query hash probing and
-scatter-based voxel accumulation.
+"""Exact packed voxel keys and the keyed reductions over them.
 
 The reference binds each source point to its voxel with an unordered_map
 lookup (update_correspondences, rot_vgicp_impl.hpp:172-222) and builds the
 map by pointer-chasing inserts (create_voxelmap, vmp_voxel.hpp:167-197).
-Neither shape exists on TPU: random row gathers lower poorly (~78 ms per
-bind at batch 64, measured on the first port) and scatter-adds serialize
-(~43 ms per batched voxel build, measured). Both are instead expressed as
-ONE primitive:
+Here a voxel's bin packs exactly into one int32 (pack_polar/pack_uniform),
+so key equality is exact bin equality with zero collisions. A voxel table
+is an ascending array of packs, and both operations key into it by binary
+search:
 
-    out[s, m] = sum_k values[s, k] * (keys_k[k] == keys_m[m])
-
-- voxel lookup/join: values = voxel stat planes [S, V], keys_k = table
-  packs, keys_m = query packs -> per-query stats [S, N] (each query matches
-  at most one table row, so the matmul IS the gather);
-- voxel build: values = weighted per-point stat planes [S, N], keys_k =
-  per-point packs, keys_m = unique voxel packs -> per-voxel sums [S, V]
-  (each point matches exactly its voxel, so the matmul IS the
-  segment-reduce).
-
-Everything stays in the SoA [S, width] layout (lanes = the big axis), the
-equality matrix is generated tile-by-tile in VMEM (never touching HBM), and
-the f32 values ride the MXU as an exact bf16 x3 split (eq entries are 0/1 =
-exact in bf16; hi/mid/lo splits reconstruct full f32 mantissa — a plain
-bf16 pass quantizes voxel means by ~0.4%, enough to keep the LM solvers
-from meeting their 5e-4 convergence thresholds).
-
-Bin coordinates pack exactly into one int32 (pack_polar/pack_uniform), so
-key equality == exact bin match with zero collisions.
+- voxel lookup: query pack -> leftmost table slot holding it, then a
+  gather of that slot's stat planes (search_slots);
+- voxel build: per-point stat planes summed into the slot of the point's
+  pack (segment_sums).
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 # Packed-coordinate layout (exact, collision-free for in-range bins):
 #   polar:   theta[7b] << 24 | phi[6b] << 18 | r[18b]
@@ -84,116 +63,17 @@ def unpack_uniform(pack: jnp.ndarray) -> jnp.ndarray:
     return jnp.stack([x, y, z], axis=-1)
 
 
-def _split3(v: jnp.ndarray):
-    """Exact-to-f32 three-way bf16 split: v ~= hi + mid + lo."""
-    hi = v.astype(jnp.bfloat16)
-    r1 = v - hi.astype(jnp.float32)
-    mid = r1.astype(jnp.bfloat16)
-    lo = (r1 - mid.astype(jnp.float32)).astype(jnp.bfloat16)
-    return hi, mid, lo
+def search_slots(table: jnp.ndarray, keys: jnp.ndarray) -> jnp.ndarray:
+    """Leftmost slot of each key in the ascending `table` -> [M] int32
+    (clipped into range; callers check `table[slot] == key`)."""
+    slot = jnp.searchsorted(table, keys, method="scan_unrolled")
+    return jnp.clip(slot, 0, table.shape[0] - 1).astype(jnp.int32)
 
 
-def _keyed_kernel(vals_ref, kk_ref, km_ref, out_ref):
-    # vals [S, BK] f32; kk [BK, 1] i32; km [1, BM] i32; out [S, BM] f32
-    j = pl.program_id(1)
-    eq = (kk_ref[:] == km_ref[:]).astype(jnp.bfloat16)  # [BK, BM]
-    hi, mid, lo = _split3(vals_ref[:])
-    # explicit DEFAULT precision: these bf16 dots are already exact via the
-    # 3-way split; the library-wide "highest" default would pointlessly
-    # promote them to multi-pass f32
-    part = (
-        jnp.dot(hi, eq, preferred_element_type=jnp.float32,
-                precision=jax.lax.Precision.DEFAULT)
-        + jnp.dot(mid, eq, preferred_element_type=jnp.float32,
-                  precision=jax.lax.Precision.DEFAULT)
-        + jnp.dot(lo, eq, preferred_element_type=jnp.float32,
-                  precision=jax.lax.Precision.DEFAULT)
-    )
-
-    @pl.when(j == 0)
-    def _():
-        out_ref[:] = part
-
-    @pl.when(j > 0)
-    def _():
-        out_ref[:] = out_ref[:] + part
-
-
-def _pad_to(x: jnp.ndarray, axis: int, mult: int, value=0):
-    pad = (-x.shape[axis]) % mult
-    if pad == 0:
-        return x
-    widths = [(0, 0)] * x.ndim
-    widths[axis] = (0, pad)
-    return jnp.pad(x, widths, constant_values=value)
-
-
-@functools.partial(jax.jit, static_argnames=("block_m", "block_k"))
-def _keyed_matmul_pallas(
-    values: jnp.ndarray,
-    keys_k: jnp.ndarray,
-    keys_m: jnp.ndarray,
-    block_m: int = 512,
-    block_k: int = 2048,
-) -> jnp.ndarray:
-    s, k = values.shape
-    m = keys_m.shape[0]
-    bk = min(block_k, max(128, -(-k // 128) * 128))
-    bm = min(block_m, max(128, -(-m // 128) * 128))
-    # pad: extra K columns carry zero values (any key is harmless);
-    # extra M columns are discarded on return.
-    values_p = _pad_to(_pad_to(values, 0, 8), 1, bk)
-    kk = _pad_to(keys_k, 0, bk, value=INVALID_PACK)[:, None]  # [K', 1]
-    km = _pad_to(keys_m, 0, bm, value=INVALID_PACK)[None, :]  # [1, M']
-    sp, kp = values_p.shape
-    mp = km.shape[1]
-    grid = (mp // bm, kp // bk)
-    out = pl.pallas_call(
-        _keyed_kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((sp, bk), lambda i, j: (0, j), memory_space=pltpu.VMEM),
-            pl.BlockSpec((bk, 1), lambda i, j: (j, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, bm), lambda i, j: (0, i), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((sp, bm), lambda i, j: (0, i), memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((sp, mp), jnp.float32),
-        cost_estimate=pl.CostEstimate(
-            flops=6 * sp * kp * mp,
-            bytes_accessed=(sp * kp + sp * mp) * 4 + (kp + mp) * 4 * (mp // bm),
-            transcendentals=0,
-        ),
-    )(values_p, kk, km)
-    return out[:s, :m]
-
-
-def _keyed_matmul_jnp(values, keys_k, keys_m, chunk: int = 1024) -> jnp.ndarray:
-    m = keys_m.shape[0]
-    km = _pad_to(keys_m, 0, chunk, value=INVALID_PACK)
-    # padded-K columns of `values` are zero, so sentinel matches add nothing
-    def one(kmc):
-        eq = (keys_k[:, None] == kmc[None, :]).astype(jnp.float32)
-        return jnp.dot(
-            values, eq,
-            preferred_element_type=jnp.float32,
-            precision=jax.lax.Precision.HIGHEST,
-        )
-
-    out = jax.lax.map(one, km.reshape(-1, chunk))  # [C, S, chunk]
-    out = jnp.moveaxis(out, 0, 1).reshape(values.shape[0], -1)
-    return out[:, :m]
-
-
-def keyed_matmul(values: jnp.ndarray, keys_k: jnp.ndarray, keys_m: jnp.ndarray) -> jnp.ndarray:
-    """out[s, m] = sum over k of values[s, k] where keys_k[k] == keys_m[m].
-
-    values [S, K] f32 (zero columns for padding/invalid entries);
-    keys_k [K] int32; keys_m [M] int32 -> [S, M] f32.
-
-    When every keys_k is unique this is an exact one-hot gather (join);
-    when keys_m is unique it is an exact segment reduction (build). Pallas
-    on TPU; chunked jnp elsewhere.
-    """
-    if jax.default_backend() == "tpu":
-        return _keyed_matmul_pallas(values, keys_k, keys_m)
-    return _keyed_matmul_jnp(values, keys_k, keys_m)
+def segment_sums(values: jnp.ndarray, keys: jnp.ndarray, table: jnp.ndarray) -> jnp.ndarray:
+    """Per-slot sums of values [S, N] whose key lands on that slot of the
+    ascending `table` [V] (the leftmost slot holding the key); keys absent
+    from the table drop out -> [S, V]."""
+    slot = search_slots(table, keys)
+    slot = jnp.where(table[slot] == keys, slot, table.shape[0])
+    return jax.ops.segment_sum(values.T, slot, num_segments=table.shape[0]).T

@@ -1,6 +1,6 @@
 """Pod-scale parallelism: device meshes + batched SLAM workloads.
 
-The explicit TPU-native account of the reference's parallelism inventory
+The explicit account of the reference's parallelism inventory
 (SURVEY.md section 2.7): process pipelining, OpenMP loops, and the pub/sub
 bus collapse into jitted programs; the *new* axis the reference lacks —
 batch parallelism over a mesh — lives here.

@@ -2,11 +2,11 @@
 
 The reference's distribution story is five OS processes on a TCPROS bus on
 one machine (SURVEY.md section 2.7); its per-scan compute never exceeds one
-CPU. The TPU build's scaling axis is *batch*: thousands of concurrent
+CPU. This build's scaling axis is *batch*: thousands of concurrent
 scan-pair registrations, odometry sequences, pose-graph solves, and prior
 solves sharded over a `jax.sharding.Mesh`. These helpers standardize mesh
 construction and pytree sharding so every batched entry point in
-parallel/batch.py works identically on 1 chip, a v5e slice, or a CPU mesh
+parallel/batch.py works identically on 1 card, several cards, or a CPU mesh
 of virtual devices (tests/conftest.py).
 
 Axis convention: ("host", "batch") for multi-host pods — batch sharding

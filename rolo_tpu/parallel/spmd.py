@@ -5,9 +5,9 @@ parallelism). This module scales the *inside* of a single registration: the
 source cloud's point axis is split across devices with `shard_map`, every
 device linearizes its shard of correspondences, and the tiny dense results —
 the 3x3 / 6x6 Hessians, gradients, and scalar errors of the LM solvers —
-are reduced with `jax.lax.psum` over ICI. This is the "Hessian-block
-reduction" collective promised in SURVEY.md section 2.7: the TPU-native
-equivalent of the reference's per-thread OpenMP accumulators reduced
+are reduced with `jax.lax.psum` across the devices. This is the
+"Hessian-block reduction" collective promised in SURVEY.md section 2.7: the
+mesh equivalent of the reference's per-thread OpenMP accumulators reduced
 serially (rot_vgicp_impl.hpp:242-287, :313-382, :522-600).
 
 Because the psummed (error, H, b) are bitwise identical on every device,

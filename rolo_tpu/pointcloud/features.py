@@ -1,6 +1,6 @@
 """LOAM-style feature extraction over per-ring compacted range scans.
 
-TPU-native re-design of FeatureExtraction
+JAX re-design of FeatureExtraction
 (/root/reference/src/featureExtraction.cpp:87-265). The reference sorts each
 (ring, sector) span by smoothness and greedily picks corners with neighbor
 suppression; here the greedy pick is 20 rounds of masked argmax over all

@@ -1,6 +1,6 @@
 """Range-image projection + motion deskew.
 
-TPU-native re-design of ImageProjection
+JAX re-design of ImageProjection
 (/root/reference/src/imageProjection.cpp:158-512). The reference loops over
 points filling a cv::Mat and a compacted list; here the whole scan becomes a
 dense [n_scan, horizon] image via vectorized scatter, and the "extracted
@@ -36,7 +36,7 @@ class RawScan(NamedTuple):
 
 
 class RingImage(NamedTuple):
-    """Per-ring compacted scan: the TPU analog of CloudInfoStamp's
+    """Per-ring compacted scan: the fixed-shape analog of CloudInfoStamp's
     (extracted cloud, startRingIndex, endRingIndex, pointColInd, pointRange).
 
     All arrays are [n_scan, horizon]; for each ring, valid points are packed

@@ -1,6 +1,6 @@
 """Ground-contact prior stack.
 
-TPU-native equivalent of the reference's prior_pose_node + pose_solver +
+JAX equivalent of the reference's prior_pose_node + pose_solver +
 performPriorAssociation (/root/reference/src/prior_pose/,
 /root/reference/src/backMapping.cpp:1943-2158).
 """

@@ -1,7 +1,7 @@
 """Ground-prior observation pipeline: prior-pose computation, the prior
 queue, and the keyframe association that emits prior between-factors.
 
-TPU-native re-design of two reference pieces:
+JAX re-design of two reference pieces:
   - prior_pose_node::HandlePose (/root/reference/src/prior_pose/
     prior_pose_node.cpp:164-236): run the wheel-contact solver at a future
     (x, y, yaw), keep x/y/yaw, take z/roll/pitch from the solver, extract

@@ -1,9 +1,9 @@
 """Ground map: height queries, local plane fits, and patch extraction.
 
-TPU-native re-design of the reference's GroundModel
+JAX re-design of the reference's GroundModel
 (/root/reference/include/rolo/pose_solver.hpp:57-83,
 /root/reference/src/prior_pose/pose_solver.cpp:120-378). The xy kd-tree
-becomes a masked brute-force distance matrix (MXU matmul); the dynamic
+becomes a masked brute-force distance matrix (one matmul); the dynamic
 radius searches become fixed-radius masked reductions. The ground cloud is
 a PaddedCloud, typically the external "/voxel_map" ground mapping input
 (launch/module_prior.launch:9).
@@ -108,7 +108,7 @@ def fit_local_surface(
     centroid = jnp.einsum("n,ni->i", wi, gm.xyz) / wisum
     centered = gm.xyz - centroid
     cov = jnp.einsum("n,ni,nj->ij", wi, centered, centered)
-    _, vecs = eigh3(cov)  # closed form (ops/eig3.py); XLA eigh is slow on TPU
+    _, vecs = eigh3(cov)  # closed form (ops/eig3.py)
     normal = vecs[:, 0]  # smallest eigenvalue
     d = -jnp.dot(normal, centroid)
     c = normal[2]

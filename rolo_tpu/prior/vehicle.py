@@ -1,7 +1,7 @@
 """Vehicle ground-contact pose solver: LM over (z, roll, pitch) at fixed
 (x, y, yaw).
 
-TPU-native re-design of ground_factor::VehicleModel / PoseSolver
+JAX re-design of ground_factor::VehicleModel / PoseSolver
 (/root/reference/src/prior_pose/pose_solver.cpp:54-118, 379-679): spring
 contact forces on wheels below the ground surface, a gravity-alignment
 wrench residual, the analytic 3x3 Jacobian (ComputeResidualAndJacobian

@@ -1,7 +1,7 @@
 """Experimental multi-neighbor GICP (point cloud to point cloud, k target
 neighbors per source point).
 
-TPU-native equivalent of the reference's experimental FastGICPMultiPoints
+JAX equivalent of the reference's experimental FastGICPMultiPoints
 (/root/reference/include/rot_gicp/gicp/experimental/fast_gicp_mp.hpp — kept
 under experimental/ and not built into any target; provided here for
 component parity). Instead of one voxel correspondence per source point,
@@ -9,7 +9,7 @@ each source point is matched to its k nearest *points* in the target cloud
 and every (point, neighbor) pair contributes a Mahalanobis-weighted
 residual.
 
-TPU design: the kd-tree neighbor search becomes the chunked MXU brute-force
+Design: the kd-tree neighbor search becomes the chunked brute-force
 k-NN (voxel.knn.knn_indices) and the per-neighbor constraint set maps
 directly onto the SoA Correspondences layout [O=k, N] that the production
 rot-GICP linearizers already consume — so the multi-point variant reuses

@@ -1,16 +1,15 @@
 """rot-GICP objective: correspondences, Mahalanobis weights, linearizations.
 
-TPU-native re-design of RotVGICP
+JAX re-design of RotVGICP
 (/root/reference/include/rot_gicp/gicp/impl/rot_vgicp_impl.hpp). The
 reference's per-correspondence OpenMP loops (update_correspondences :172-222,
 linearize :225-290, so3_linearize :292-388, t3_linearize :498-607) become
 fully vectorized array programs in **structure-of-arrays layout**: points
 are [3, N] planes, symmetric matrices are [6, N] planes (ops/sym3), so the
-lane dimension is always the point axis — a [N, 3, 3] batch would pad its
-3-wide minor dims to TPU's (8, 128) tiles, a ~43x HBM inflation that made
-the first (reference-shaped einsum) port memory-bound at ~29 ms per
-linearization. This formulation runs the same math in closed component form
-on full-width VPU lanes. Everything is jit- and vmap-safe, so thousands of
+innermost dimension is always the point axis (a [N, 3, 3] batch puts a
+3-wide dim innermost, which layouts pad). This formulation runs the same
+math in closed component form over the point axis. Everything is jit- and
+vmap-safe, so thousands of
 scan pairs batch across a device mesh.
 
 Conventions follow the reference exactly:

@@ -1,6 +1,6 @@
 """Levenberg-Marquardt drivers for rot-GICP as jittable while-loops.
 
-TPU-native re-design of LsqRegistration
+JAX re-design of LsqRegistration
 (/root/reference/include/rot_gicp/gicp/impl/lsq_registration_impl.hpp):
   - rotation-only SO(3) LM (rot_step_lm, :272-324) — the default optimizer,
   - full SE(3) LM (step_lm, :225-270) and Gauss-Newton (step_gn, :207-222),
@@ -329,8 +329,8 @@ def lm_translation_rebind(
     solve (the rebind inside t3_linearize is commented out,
     rot_vgicp_impl.hpp:509-512), which caps how much translation error a
     single scan can recover — its accuracy rests on the forward location
-    prediction staying inside one binding's pull. On TPU a rebind is just
-    another batch of hash gathers, so this driver re-binds at the current
+    prediction staying inside one binding's pull. Here a rebind is just
+    another batch of voxel lookups, so this driver re-binds at the current
     translation and re-solves, up to `rebind_rounds` times, stopping early
     once a round no longer moves the estimate. rebind_rounds=1 reproduces
     the reference exactly."""

@@ -1,4 +1,4 @@
-"""Top-level rot-GICP registration: the TPU equivalent of
+"""Top-level rot-GICP registration: the JAX equivalent of
 fast_gicp::RotVGICP driven the way LidarOdometry::scanRegeistration drives it
 (/root/reference/src/lidarOdometry.cpp:448-501):
 
@@ -63,7 +63,7 @@ def register_features(
     Model: tgt ~ R src + t, with `t` carried as the TOTAL step translation
     (initialized from the forward prediction). Differences vs the
     reference's scanRegeistration (lidarOdometry.cpp:448-501), each a
-    measured accuracy fix on the bench workload (tools/diag_ct.py):
+    measured accuracy fix on the bench workload:
 
       - the translation residual uses the ROTATED source (e = mu_B -
         (R p + t)); the reference's t3_linearize keeps the source

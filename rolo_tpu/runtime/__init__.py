@@ -1,6 +1,6 @@
 """Runtime: host IO, metrics, and the full SLAM system driver.
 
-TPU-native equivalent of the reference's launch/orchestration layer
+JAX equivalent of the reference's launch/orchestration layer
 (/root/reference/launch/) plus its export paths
 (/root/reference/src/backMapping.cpp:1500-1608, 2679-2699).
 """

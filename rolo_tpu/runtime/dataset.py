@@ -51,6 +51,9 @@ class SequenceResult:
     # with z_rmse, the metric the ground-prior subsystem exists to improve
     # (the ROLO paper's uneven-terrain claim)
     ate_keyframes_rp_rmse: Optional[float] = None
+    # host wall time of each process_scan call (s); the first includes
+    # compiling the per-scan programs
+    scan_s: List[float] = field(default_factory=list)
 
     def to_json(self) -> dict:
         out = {
@@ -63,6 +66,11 @@ class SequenceResult:
             "n_loop_factors": self.n_loop_factors,
             "n_prior_factors": self.n_prior_factors,
         }
+        if self.scan_s:
+            steady_ms = np.asarray(self.scan_s[1:] or self.scan_s) * 1e3
+            out["first_scan_s"] = round(self.scan_s[0], 3)
+            out["scan_ms_p50"] = round(float(np.percentile(steady_ms, 50)), 3)
+            out["scan_ms_p99"] = round(float(np.percentile(steady_ms, 99)), 3)
         if self.ate_frontend is not None:
             out["ate_frontend_rmse_m"] = round(self.ate_frontend.rmse, 4)
         if self.ate_keyframes is not None:
@@ -95,10 +103,13 @@ def run_frames(
     n = 0
     t_start = time.perf_counter()
     gt_rots: List[np.ndarray] = []
+    scan_s: List[float] = []
     for frame in frames:
         ring = getattr(frame, "ring", None)
         rel_time = getattr(frame, "rel_time", None)
+        t_scan = time.perf_counter()
         slam.process_scan(frame.points, frame.stamp, ring=ring, rel_time=rel_time)
+        scan_s.append(time.perf_counter() - t_scan)
         if getattr(frame, "gt_trans", None) is not None and not gt:
             gt_times.append(frame.stamp)
             gt_pos.append(np.asarray(frame.gt_trans))
@@ -120,6 +131,7 @@ def run_frames(
         n_keyframes=int(slam.backend_state.db.count),
         n_loop_factors=int(slam.backend_state.graph.loops.count),
         n_prior_factors=int(slam.backend_state.graph.priors.count),
+        scan_s=scan_s,
     )
 
     if gt_pos:

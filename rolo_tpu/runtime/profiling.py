@@ -24,8 +24,8 @@ class StageTimers:
     DISPATCH only — the host enqueues device work and moves on; stages
     without a `sync` argument therefore understate device execution cost.
     `wall_s` / scans_per_s in SequenceResult remain truthful end-to-end
-    numbers. For device-true per-stage costs use tools/profile_stages.py,
-    which runs each stage synced in isolation."""
+    numbers. For device-true per-stage costs set SlamSystem.sync_stages
+    (tools/bench_pipeline.py --synced) or take a profiler trace."""
 
     def __init__(self) -> None:
         self._samples: Dict[str, list] = defaultdict(list)

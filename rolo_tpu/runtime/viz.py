@@ -4,7 +4,7 @@ path / loop-marker / factor-graph publishers, backMapping.cpp:1341-1454,
 1667-1900, 2626-2677).
 
 Everything renders to files (PNG via matplotlib when available, PLY always)
-so runs on TPU pods produce inspectable artifacts without a display.
+so runs on headless accelerator hosts produce inspectable artifacts.
 """
 
 from __future__ import annotations

@@ -1,14 +1,14 @@
 """Brute-force dense k-NN + per-point covariance estimation.
 
-TPU-native replacement for the reference's kd-tree covariance pass
-(RotVGICP::calculate_covariances, rot_vgicp_impl.hpp:419-496). kd-trees are
-pointer-chasing and hostile to TPUs; for feature-cloud sizes (<=16k points)
-a chunked dense distance matrix beats tree traversal by orders of
-magnitude. The distance tile is computed in one of two forms per callsite
-(see knn_indices `form`): the MXU matmul form |q|^2 + |x|^2 - 2 q.x for
-large candidate sets with coarse gates (ICP, scan-to-submap binds), or the
+Fixed-shape replacement for the reference's kd-tree covariance pass
+(RotVGICP::calculate_covariances, rot_vgicp_impl.hpp:419-496): kd-trees are
+pointer-chasing and have no fixed-shape form, so for feature-cloud sizes
+(<=32k points) the neighbors come from a chunked dense distance matrix.
+The distance tile is computed in one of two forms per callsite (see
+knn_indices `form`): the matmul form |q|^2 + |x|^2 - 2 q.x for large
+candidate sets with coarse gates (ICP, scan-to-submap binds), or the
 cancellation-free elementwise difference form where sub-cm neighbor
-ordering matters (covariance neighborhoods — the round-5 accuracy fix).
+ordering matters (covariance neighborhoods).
 
 Covariance regularization mirrors rot_vgicp_impl.hpp:456-492: neighborhood
 covariance (divided by k, reference line :456), then eigenvalue surgery
@@ -59,26 +59,22 @@ def knn_indices(
     infinite distance; invalid queries return arbitrary indices (mask
     downstream). Q must be a multiple of `chunk` or is padded internally.
 
-    approximate=True swaps the row-wide `top_k` for `lax.approx_min_k` —
-    the TPU-optimized partial-reduce selector (PanNN). On the scan-to-submap
-    bind (12k queries x 64k submap) this is the difference between 45 ms and
-    ~4 ms per rebind; recall_target=0.95 means <=5% of neighbors may be
-    replaced by the next-nearest bin candidate, which downstream line/plane
-    fits (5-point least squares) absorb. Falls back to exact top-k on CPU.
+    approximate=True swaps the row-wide `top_k` for `lax.approx_min_k`.
+    On the GPU XLA lowers that to a radix sort of each row, on the CPU to
+    an exact top-k: the result is exact and recall_target has no effect.
 
     form selects the distance-tile computation:
-      "matmul" (default): |q|^2 - 2 q.x + |x|^2 with a 3-pass HIGH
-        product — one small MXU matmul per tile. At lidar coordinate
-        scale its cancellation leaves ~5e-3 m^2 absolute d2 noise, far
-        below the 0.3-1 m correspondence gates of the ICP / scan-to-
-        submap consumers, and ~8x cheaper than the elementwise form on
-        large candidate sets (the loop ICP runs a [2k x 32k] k=1 kNN
-        100x per verification: elementwise there cost ~1.1 s of scan
-        latency, measured round 5).
-      "elementwise": per-coordinate difference form on the VPU —
-        cancellation-free, neighbor ordering f64-exact in practice. Use
-        when sub-cm ordering matters (covariance neighborhoods; the
-        estimate_cov6 selectors force this).
+      "matmul" (default): |q|^2 - 2 q.x + |x|^2 — one small matmul per
+        tile, at the process-wide matmul precision (rolo_tpu/__init__.py).
+        At lidar coordinate scale its cancellation leaves ~5e-3 m^2
+        absolute d2 noise in f32, far below the 0.3-1 m correspondence
+        gates of the ICP / scan-to-submap consumers, and it is much
+        cheaper than the elementwise form on large candidate sets (the
+        loop ICP runs a [4k x 16k] k=1 kNN up to 100x per verification).
+      "elementwise": per-coordinate difference form — cancellation-free,
+        neighbor ordering f64-exact in practice. Use when sub-cm ordering
+        matters (covariance neighborhoods; the estimate_cov6 selectors
+        force this).
     """
     q = query.shape[0]
     n = points.shape[0]
@@ -98,17 +94,15 @@ def knn_indices(
         else:
             d2 = (
                 jnp.sum(qc * qc, axis=1, keepdims=True)
-                - 2.0 * jnp.dot(qc, points.T, preferred_element_type=jnp.float32,
-                                precision=jax.lax.Precision.HIGH)
+                - 2.0 * jnp.dot(qc, points.T, preferred_element_type=jnp.float32)
                 + x2[None, :]
             )
         d2 = d2 + inf_row[None, :]
         if k == 1:
-            # nearest-neighbor only (the ICP correspondence path, 100x
-            # per loop/prior verification): a plain argmin row-reduce is
-            # exact and fuses with the distance-tile producer, where
-            # top_k/approx_min_k materialize the [C, N] tile in HBM —
-            # measured 713 -> ~250 ms per loop_closure_step (round 5)
+            # nearest-neighbor only (the ICP correspondence path, up to
+            # 100x per loop/prior verification): a plain argmin row-reduce
+            # is exact and fuses with the distance-tile producer, where
+            # top_k/approx_min_k materialize the [C, N] tile in memory
             idx = jnp.argmin(d2, axis=1)[:, None]
         elif approximate:
             _, idx = jax.lax.approx_min_k(d2, k, recall_target=recall_target)
@@ -133,8 +127,7 @@ def regularize_covariance(cov: jnp.ndarray, method: str = PLANE) -> jnp.ndarray:
         return jnp.linalg.inv(c_inv / norm[..., None, None])
     # Symmetric PSD: SVD(U, s, V) == eigh up to ordering/signs; reference
     # reconstructs U diag(values) V^T which equals Q diag Q^T here.
-    # Closed-form eig3 (ops/eig3.py): XLA's iterative eigh is ~100x slower
-    # on TPU for batched 3x3s.
+    # Closed-form eig3 (ops/eig3.py) for batched 3x3s.
     eigval, eigvec = eigh3(cov)  # ascending
     if method == PLANE:
         values = jnp.broadcast_to(jnp.array([1e-3, 1.0, 1.0], cov.dtype), eigval.shape)
@@ -162,30 +155,21 @@ def estimate_cov6(
 
     Matches calculate_covariances (rot_vgicp_impl.hpp:419-496): the point
     itself is its own nearest neighbor, the neighborhood is mean-centered,
-    cov = X X^T / k, then regularized. Returns [6, N] sym3 planes — the
-    hot-path layout (TPU pads a [N, 3, 3] batch's 3-wide minor dims to
-    (8, 128) tiles, a ~43x HBM inflation the SoA layout avoids).
+    cov = X X^T / k, then regularized. Returns [6, N] sym3 planes (the
+    SoA layout the registration linearizers consume).
 
     selector:
       "moment" (default): gather-free. The kth-NN distance r_k comes from
-        lax.approx_min_k on the MXU distance chunk; neighborhood zeroth/
-        first/second moments are then ONE extra matmul with the membership
-        mask (d2 <= r_k) — no index materialization, no random gather.
-        Membership is near-exact (elementwise d2 + margined approx_min_k
-        give r_k to ~1e-8 relative), but the covariance FORMULA
-        E[xx] - mu mu^T carries an irreducible f32 cancellation at lidar
-        coordinate scale: xx table entries ~2.5e3 are f32-quantized at
-        ~1.5e-4 while cov entries are ~1e-4..1e-3, costing ~6% median
-        relative error pre-regularization vs the exact selector
-        (tests_tpu/test_tpu_numeric_oracles.py pins the measured bound).
-        Measured cost at the REGISTRATION level (bench.py, 16 sim scan
-        pairs, zero guess, TPU v5e): moment 0.41 deg / 0.011 m vs exact
-        0.40 deg / 0.010 m — within 10% on translation — at 206 vs 10.4
-        reg/s end-to-end (the exact path's [N, k] gather serializes the
-        whole program). The round-4 "3x translation cost" attributed to
-        this selector was actually the Pallas knn_moments kernel's two
-        precision bugs (fixed; see ops/knn_moments.py — the kernel is now
-        opt-in and oracle-tested).
+        lax.approx_min_k on the elementwise distance chunk; neighborhood
+        zeroth/first/second moments are then ONE extra matmul with the
+        membership mask (d2 <= r_k) — no index materialization, no
+        random gather. Membership is near-exact, but the covariance
+        FORMULA E[xx] - mu mu^T carries an irreducible f32 cancellation
+        at lidar coordinate scale: xx table entries ~2.5e3 are
+        f32-quantized at ~1.5e-4 while cov entries are ~1e-4..1e-3,
+        costing a few % median relative error pre-regularization vs the
+        exact selector (tests/test_numeric_oracles.py pins the bound;
+        bench.py gates the registration-level effect).
       "exact": lax.top_k indices + gather, bit-faithful to the reference's
         kd-tree k-NN — the oracle for tests.
 
@@ -195,11 +179,6 @@ def estimate_cov6(
     a subset of candidates for the self-neighbor property to hold. Defaults
     to (xyz, mask).
     """
-    import os
-
-    # trace-time A/B override (used by tools/ and the AB studies): forces
-    # every caller onto one selector without threading config through
-    selector = os.environ.get("ROLO_COV_SELECTOR", selector)
     if cand_xyz is None:
         cand_xyz, cand_mask = xyz, mask
     n = xyz.shape[0]
@@ -239,57 +218,27 @@ def estimate_cov6(
             axis=1,
         ) * cand_mask[:, None]
 
-        import os
+        def one_chunk(qc):
+            # elementwise distance tile (see _d2_chunk / knn_indices: the
+            # matmul form's cancellation noise shifts the k-th-NN
+            # membership threshold by ~14% median)
+            d2 = _d2_chunk(qc, cand_xyz) + inf_row[None, :]
+            # the k-th smallest distance is the membership radius; the
+            # selection over-asks k + 12 so that the k-th value stays exact
+            # even where approx_min_k is approximate (on the GPU and the
+            # CPU it lowers to an exact selection)
+            kk = min(k + 12, cand_xyz.shape[0])
+            dk, _ = jax.lax.approx_min_k(d2, kk)
+            rk = dk[:, k - 1:k]
+            w = (d2 <= rk).astype(qc.dtype)
+            # the moment sums are coordinate products at lidar scale: they
+            # run at the process-wide matmul precision (rolo_tpu/__init__.py)
+            return jnp.dot(w, xc, preferred_element_type=jnp.float32)
 
-        # Optional fused Pallas kernel (ops/knn_moments.py): the distance
-        # tile never leaves VMEM, and standalone it matches the XLA path
-        # (0.49 vs 0.46 ms per 16x8192 batch, k=20, v5e). It is OFF by
-        # default: measured IN CONTEXT (bench.py's full registration
-        # program) the pallas_call costs ~35% end-to-end throughput
-        # (112 vs 168 reg/s) — the call is an XLA fusion/scheduling
-        # barrier in the middle of the solver program, and the XLA moment
-        # path below fuses with its neighbors. Set ROLO_KNN_KERNEL=1 to
-        # opt in (guarded to candidate sets whose [N, 128] f32 distance
-        # tile fits VMEM; the kernel is oracle-tested on TPU in
-        # tests/test_knn_moments.py).
-        use_kernel = (
-            jax.default_backend() == "tpu"
-            and cand_xyz.shape[0] <= 8192
-            and os.environ.get("ROLO_KNN_KERNEL", "0") == "1"
-        )
-        if use_kernel:
-            from ..ops.knn_moments import knn_moments
-
-            xc16 = jnp.pad(xc.T, ((0, 6), (0, 0)))  # [16, N] SoA
-            mom16 = knn_moments(xyz, mask, cand_xyz, cand_mask, xc16, k)
-            cnt = jnp.maximum(mom16[0], 1.0)  # [N]
-            mu = mom16[1:4] / cnt[None, :]  # [3, N]
-            exx = mom16[4:10] / cnt[None, :]  # [6, N]
-        else:
-            def one_chunk(qc):
-                # elementwise distance tile (see _d2_chunk / knn_indices:
-                # the matmul form's cancellation noise shifts the
-                # k-th-NN membership threshold by ~14% median)
-                d2 = _d2_chunk(qc, cand_xyz) + inf_row[None, :]
-                # over-ask approx_min_k: aggregate_to_topk (default) does
-                # an exact top-k over the collected candidates, so with a
-                # margin the k-th value is exact unless >margin of the
-                # true top-(k+margin) were missed by the bin pass —
-                # r_k median error drops to ~3e-8 (vs 4e-8 at margin 0,
-                # but the tail tightens)
-                kk = min(k + 12, cand_xyz.shape[0])
-                dk, _ = jax.lax.approx_min_k(d2, kk)
-                rk = dk[:, k - 1:k]
-                w = (d2 <= rk).astype(qc.dtype)
-                # membership mask is 0/1 = exact in bf16; moments need the
-                # raised precision for the coordinate products
-                return jnp.dot(w, xc, preferred_element_type=jnp.float32,
-                               precision=jax.lax.Precision.HIGH)
-
-            mom = jax.lax.map(one_chunk, xyz_p.reshape(-1, chunk, 3)).reshape(-1, 10)[:n]
-            cnt = jnp.maximum(mom[:, 0], 1.0)
-            mu = (mom[:, 1:4] / cnt[:, None]).T  # [3, N]
-            exx = (mom[:, 4:] / cnt[:, None]).T  # [6, N]
+        mom = jax.lax.map(one_chunk, xyz_p.reshape(-1, chunk, 3)).reshape(-1, 10)[:n]
+        cnt = jnp.maximum(mom[:, 0], 1.0)
+        mu = (mom[:, 1:4] / cnt[:, None]).T  # [3, N]
+        exx = (mom[:, 4:] / cnt[:, None]).T  # [6, N]
         # centered second moment, rescaled to the reference's sum/k
         cov6 = jnp.stack(
             [

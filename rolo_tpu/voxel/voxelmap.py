@@ -1,21 +1,16 @@
-"""Voxel maps over fixed-slot arrays: the TPU replacement for the
+"""Voxel maps over fixed-slot arrays: the fixed-shape replacement for the
 reference's pointer-based spatial hash
 (/root/reference/include/rot_gicp/gicp/vmp_voxel.hpp:157-243).
 
 Design: a voxel map is a sorted array of (packed-bin, stat planes) rows.
-The build is completely scatter-free — TPU scatters serialize, and the
-first port's scatter-add build cost ~43 ms per 16-scan batch:
 
   1. pack each point's bin into one int32 (exact, ops/voxel_join.py),
   2. sort the packs; runs of equal pack are voxels,
   3. unique packs -> table slots via one vectorized binary search,
-  4. per-voxel sums (count, position, covariance) via ONE MXU keyed
-     matmul (keyed_matmul: out[s,v] = sum of values[s,n] where
-     pack[n] == table_pack[v]).
+  4. per-voxel sums (count, position, covariance) keyed by pack.
 
-Lookups are the same keyed matmul in the other direction. Stats live in
-the SoA layout [S, V] (lanes = V), so nothing pays TPU's (8, 128) tile
-padding on 3-wide minor dims.
+Lookups key the other direction: query pack -> table row. Stats live in
+the SoA layout [S, V], one plane per statistic.
 
 Supports both coordinate systems of the reference:
   - POLAR (theta, phi, r) bins — the "spherical alignment" structure used by
@@ -37,9 +32,10 @@ import jax.numpy as jnp
 from ..ops import sym3
 from ..ops.voxel_join import (
     INVALID_PACK,
-    keyed_matmul,
     pack_polar,
     pack_uniform,
+    search_slots,
+    segment_sums,
     unpack_polar,
     unpack_uniform,
 )
@@ -181,18 +177,12 @@ def build_voxel_map(
     if capacity >= sp.shape[0]:
         # Fast path (production shapes: capacity >= N): keep the sorted
         # packs WITH duplicates as the table and mark only run starts
-        # valid. Compacting unique packs into slots (cumsum + binary
-        # search + gather) was 1.25 ms of the 1.5 ms build on TPU — 16
-        # vmapped rows x 8192 x 13 binary-search rounds of random gathers
-        # serialize; everything else in the build is sort/matmul-shaped
-        # and takes ~0.25 ms. Correctness is unchanged downstream:
-        #   - the segment-reduce below gives duplicate slots the full
-        #     segment sum, but their stats are zeroed via `valid`, so
-        #     joins (lookup_join: sum over ALL matching slots) still see
-        #     each voxel exactly once;
-        #   - `lookup`'s searchsorted returns the LEFTMOST match, which
-        #     in a sorted array is precisely the run start (the valid
-        #     slot);
+        # valid, which saves compacting unique packs into slots.
+        # Correctness is unchanged downstream:
+        #   - the binary search of lookup_join and segment_sums returns
+        #     the LEFTMOST match, which in a sorted array is precisely the
+        #     run start (the valid slot); duplicate slots get no sums and
+        #     are marked invalid;
         #   - INVALID_PACK (int32 max) sorts last, so the table stays
         #     ascending for the binary search.
         table_pack = sp
@@ -209,12 +199,12 @@ def build_voxel_map(
         valid = slot < n_seg
         table_pack = jnp.where(valid, sp[pos], INVALID_PACK)
 
-    # per-voxel sums as one MXU keyed matmul (segment-reduce)
+    # per-voxel sums (segment-reduce keyed by pack)
     w = mask.astype(xyz.dtype)
     data = jnp.concatenate(
         [w[None, :], xyz.T * w[None, :], cov6 * w[None, :]], axis=0
     )  # [10, N]
-    sums = keyed_matmul(data, pack, table_pack)  # [10, V]
+    sums = segment_sums(data, pack, table_pack)  # [10, V]
 
     num = sums[0]
     denom = jnp.maximum(num, 1.0)
@@ -246,31 +236,26 @@ def lookup(
     vmap: VoxelMap, coord: jnp.ndarray, polar: bool = True
 ) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray, jnp.ndarray]:
     """Reference-shaped per-query lookup (lookup_voxel,
-    vmp_voxel.hpp:226-233): binary search on the sorted pack table. Exact
-    (packs are unique); used by tests as the oracle for the join path.
+    vmp_voxel.hpp:226-233): an AoS wrapper over lookup_join.
 
     coord [N, 3] int32 -> (found [N], num [N], mean [N, 3], cov [N, 3, 3]).
     """
     q = pack_polar(coord) if polar else pack_uniform(coord)
-    idx = jnp.clip(jnp.searchsorted(vmap.pack, q), 0, vmap.capacity - 1)
-    found = (vmap.pack[idx] == q) & vmap.valid[idx] & (q != INVALID_PACK)
-    num = jnp.where(found, vmap.num_points[idx], 0.0)
-    mean = jnp.where(found[..., None], vmap.mean[:, idx].T, 0.0)
-    cov = jnp.where(
-        found[..., None, None], sym3.to_mat(vmap.cov6)[idx], 0.0
-    )
-    return found, num, mean, cov
+    found, num, mean, cov6 = lookup_join(vmap, q)
+    return found, num, mean.T, sym3.to_mat(cov6)
 
 
 def lookup_join(
     vmap: VoxelMap, pack: jnp.ndarray
 ) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray, jnp.ndarray]:
-    """MXU keyed-matmul lookup — the production binding path.
+    """Packed-key lookup — the production binding path: binary search for
+    the leftmost table slot holding each query pack (the run start, i.e.
+    the valid slot, in a fast-path table), then a gather of its stats.
 
     pack [M] int32 queries -> SoA results:
     (found [M], num [M], mean [3, M], cov6 [6, M]).
     """
-    out = keyed_matmul(vmap.stats, vmap.pack, pack)  # [10, M]
-    num = out[0]
-    found = num > 0.0
-    return found, num, out[1:4], out[4:10]
+    idx = search_slots(vmap.pack, pack)
+    found = (vmap.pack[idx] == pack) & vmap.valid[idx]
+    out = jnp.where(found[None, :], vmap.stats[:, idx], 0.0)  # [10, M]
+    return found, out[0], out[1:4], out[4:10]

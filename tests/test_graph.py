@@ -258,8 +258,8 @@ class TestDenseMethod:
 class TestBcrMethod:
     """Block-cyclic-reduction + Woodbury solve (method="bcr", solver.py
     _bcr_step): the structure-exploiting replacement for the [6K, 6K]
-    dense Cholesky whose cost grows ~cubically with the bucket (815 ms at
-    K=2048 on v5e). Must agree with method="dense" on the same graph."""
+    dense Cholesky whose cost grows ~cubically with the bucket. Must agree
+    with method="dense" on the same graph."""
 
     def test_bcr_matches_dense_with_loops_and_priors(self):
         graph, true, rot_est, trans_est, n = build_square_trajectory()

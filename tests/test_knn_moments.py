@@ -1,73 +1,53 @@
-"""CPU (interpret-mode) parity tests for the Pallas knn_moments kernel.
+"""The production moment selector of estimate_cov6 (k-NN membership radius
++ one moment matmul, voxel/knn.py) against an f64 oracle with the same
+semantics: every candidate within the k-th nearest distance (ties
+included) is a member, covariance = sum of mean-centred outer products / k.
 
-The kernel is TPU-only in production (opt-in via ROLO_KNN_KERNEL=1, see
-voxel/knn.py), but its bisection/penalty/in-kernel-split logic must be
-exercised by CPU CI too: round 4 shipped it unverified and it carried two
-precision bugs (see ops/knn_moments.py module docstring). Interpret mode
-runs the exact kernel program on CPU. The TPU-backend runs of the same
-oracles live in tests_tpu/.
+The bounds come from what the moment formula gives in f32 at lidar
+coordinates (E[xx] - mu mu^T cancels ~2.5e3-sized terms down to
+~1e-2-sized covariances): median ~1e-3 relative, worst ~1e-2. A
+precision downgrade of the moment matmul (a 10-bit-mantissa product)
+misses these by orders of magnitude.
 """
 
 import numpy as np
 import jax.numpy as jnp
-import pytest
 
-from rolo_tpu.ops.knn_moments import knn_moments
+from rolo_tpu.voxel.knn import estimate_cov6
 
-
-def _moment_table(xyz, mask):
-    """[16, N] SoA moment planes (1, x, y, z, xx, xy, xz, yy, yz, zz)."""
-    n = xyz.shape[0]
-    xc = np.concatenate(
-        [
-            np.ones((n, 1), np.float32),
-            xyz,
-            xyz[:, :1] * xyz,
-            xyz[:, 1:2] * xyz[:, 1:],
-            xyz[:, 2:] * xyz[:, 2:],
-        ],
-        axis=1,
-    ) * mask[:, None]
-    return np.pad(xc.T, ((0, 6), (0, 0))).astype(np.float32)
+IDENT6 = np.array([1.0, 0, 0, 1.0, 0, 1.0])
 
 
 def _oracle(xyz, mask, cand, cand_mask, k):
-    """f64 membership-sum oracle with the kernel's d2 <= r_k semantics
-    (all ties at the k-th radius included)."""
-    q = xyz.astype(np.float64)
-    c = cand.astype(np.float64)
+    """f64 covariances [6, Q] over the d2 <= r_k membership; masked
+    queries get the identity, as estimate_cov6 returns."""
+    q = np.where(mask[:, None], xyz, 0.0).astype(np.float64)
+    c = np.where(cand_mask[:, None], cand, 0.0).astype(np.float64)
     d2 = ((q[:, None, :] - c[None, :, :]) ** 2).sum(-1)
     d2[:, ~cand_mask] = np.inf
-    xc = _moment_table(cand, cand_mask).astype(np.float64)
-    out = np.zeros((16, len(q)))
-    for i in range(len(q)):
+    out = np.tile(IDENT6[:, None], (1, len(q)))
+    for i in np.flatnonzero(mask):
         valid = np.isfinite(d2[i])
-        kk = min(k, valid.sum())
-        if kk == 0:
-            continue
-        rk = np.sort(d2[i][valid])[kk - 1]
-        w = (d2[i] <= rk) & valid
-        out[:, i] = xc[:, w].sum(axis=1)
-    out[:, ~mask] = 0.0
+        rk = np.sort(d2[i][valid])[min(k, valid.sum()) - 1]
+        nb = c[(d2[i] <= rk) & valid]
+        cen = nb - nb.mean(axis=0)
+        cov = cen.T @ cen / k
+        out[:, i] = cov[[0, 0, 0, 1, 1, 2], [0, 1, 2, 1, 2, 2]]
     return out
 
 
 def _run(xyz, mask, cand, cand_mask, k):
-    # the documented contract (see knn_moments docstring): the caller
-    # zeroes masked coordinates BEFORE building the moment table, exactly
-    # as estimate_cov6 does
-    cand_z = np.where(cand_mask[:, None], cand, 0.0).astype(np.float32)
-    return np.asarray(
-        knn_moments(
-            jnp.asarray(np.where(mask[:, None], xyz, 0.0).astype(np.float32)),
-            jnp.asarray(mask),
-            jnp.asarray(cand_z),
-            jnp.asarray(cand_mask),
-            jnp.asarray(_moment_table(cand_z, cand_mask)),
-            k,
-            interpret=True,
-        )
-    )
+    kw = {}
+    if cand is not xyz:
+        kw = dict(cand_xyz=jnp.asarray(cand), cand_mask=jnp.asarray(cand_mask))
+    return np.asarray(estimate_cov6(jnp.asarray(xyz), jnp.asarray(mask), k=k,
+                                    method="none", selector="moment", **kw))
+
+
+def _rel(got, want, mask):
+    """Per-query max-entry error relative to the query's largest entry."""
+    r = np.abs(got - want).max(axis=0) / (np.abs(want).max(axis=0) + 1e-12)
+    return r[mask]
 
 
 def _lidar_cloud(rng, n, spread=0.5, lo=20.0, hi=50.0):
@@ -77,20 +57,14 @@ def _lidar_cloud(rng, n, spread=0.5, lo=20.0, hi=50.0):
 
 
 def test_matches_oracle_lidar_scale():
-    """At lidar ranges (the cancellation regime that broke round 4)."""
+    """At lidar ranges (the cancellation regime of the moment formula)."""
     rng = np.random.default_rng(0)
     n, k = 512, 8
     xyz = _lidar_cloud(rng, n)
     mask = np.ones(n, bool)
-    got = _run(xyz, mask, xyz, mask, k)
-    want = _oracle(xyz, mask, xyz, mask, k)
-    cnt = got[0]
-    assert cnt.min() >= k and cnt.max() <= k + 2  # ties only
-    same = got[0] == want[0]
-    assert same.mean() > 0.95
-    mu_got = (got[1:4] / np.maximum(cnt, 1))[:, same]
-    mu_want = (want[1:4] / np.maximum(want[0], 1))[:, same]
-    assert np.abs(mu_got - mu_want).max() < 2e-3
+    rel = _rel(_run(xyz, mask, xyz, mask, k), _oracle(xyz, mask, xyz, mask, k), mask)
+    assert np.median(rel) < 5e-3
+    assert rel.max() < 3e-2
 
 
 def test_nan_padding_and_masked_candidates():
@@ -101,55 +75,40 @@ def test_nan_padding_and_masked_candidates():
     mask = np.ones(n, bool)
     mask[300:] = False
     xyz_dirty = xyz.copy()
-    xyz_dirty[~mask] = np.nan  # caller zeroes these; simulate that contract
+    xyz_dirty[~mask] = np.nan
     got = _run(xyz_dirty, mask, xyz_dirty, mask, k)
-    want = _oracle(xyz, mask, xyz, mask, k)
     assert np.isfinite(got).all()
-    valid = mask
-    cnt = got[0][valid]
-    assert cnt.min() >= k
-    # membership is a radius superset of the true k-NN: where counts
-    # agree the sets are identical; boundary ties/slack may add a point
-    # on a few queries (compared by count below)
-    same = valid & (got[0] == want[0])
-    assert same[valid].mean() > 0.95
-    mu_got = (got[1:4] / np.maximum(got[0], 1))[:, same]
-    mu_want = (want[1:4] / np.maximum(want[0], 1))[:, same]
-    assert np.abs(mu_got - mu_want).max() < 2e-3
-    # masked query columns are zeroed
-    assert np.abs(got[:, ~mask]).max() == 0.0
+    rel = _rel(got, _oracle(xyz, mask, xyz, mask, k), mask)
+    assert np.median(rel) < 5e-3
+    assert rel.max() < 3e-2
+    # masked queries get the identity
+    np.testing.assert_array_equal(got[:, ~mask], np.tile(IDENT6[:, None], (1, (~mask).sum())))
 
 
 def test_fewer_than_k_valid_candidates():
-    """Starved queries: fewer valid candidates than k. The penalty row
-    must keep invalid candidates out of membership."""
+    """Starved queries: fewer valid candidates than k. Invalid candidates
+    sit at infinite distance and carry zero moments, so the neighbourhood
+    is exactly the valid set (scaled by the reference's 1/k)."""
     rng = np.random.default_rng(2)
     n, k = 256, 20
     xyz = _lidar_cloud(rng, n)
     mask = np.zeros(n, bool)
     mask[:8] = True  # only 8 valid, k=20
-    got = _run(xyz, mask, xyz, mask, k)
-    cnt = got[0][mask]
-    assert (cnt == 8).all()  # exactly the valid set, never the penalty rows
-    want = _oracle(xyz, mask, xyz, mask, k)
-    assert np.allclose(got[:, mask], want[:, mask], rtol=1e-5, atol=1e-3)
+    rel = _rel(_run(xyz, mask, xyz, mask, k), _oracle(xyz, mask, xyz, mask, k), mask)
+    assert rel.max() < 1e-4
 
 
 def test_split3_not_elided_moments_are_f32_accurate():
-    """Second moments at coordinate scale ~50 m need better-than-bf16
-    mantissas; if the in-kernel 3-way split regressed to one bf16 pass
-    (the round-4 failure mode), errors jump ~3 orders of magnitude."""
+    """Second moments at coordinate scale ~50 m need a full f32 product:
+    a 10-bit-mantissa matmul (TF32, or one bf16 pass) quantizes the
+    E[xx] table by ~1e-3 relative, i.e. by more than the covariances
+    themselves, and fails this bound by orders of magnitude."""
     rng = np.random.default_rng(3)
     n, k = 256, 8
     xyz = _lidar_cloud(rng, n)
     mask = np.ones(n, bool)
-    got = _run(xyz, mask, xyz, mask, k)
-    want = _oracle(xyz, mask, xyz, mask, k)
-    same = got[0] == want[0]  # compare where membership agrees exactly
-    assert same.mean() > 0.95
-    second = np.abs(got[4:10][:, same] - want[4:10][:, same])
-    scale = np.abs(want[4:10][:, same]) + 1.0
-    assert (second / scale).max() < 1e-5  # bf16 single-pass would be ~4e-3
+    rel = _rel(_run(xyz, mask, xyz, mask, k), _oracle(xyz, mask, xyz, mask, k), mask)
+    assert rel.max() < 2e-2
 
 
 def test_query_set_differs_from_candidate_set():
@@ -158,12 +117,8 @@ def test_query_set_differs_from_candidate_set():
     nq, nc, k = 128, 640, 10
     cand = _lidar_cloud(rng, nc)
     cand_mask = rng.random(nc) < 0.9
-    xyz = cand[:nq]  # queries are a subset of candidates
+    xyz = cand[:nq].copy()
     mask = cand_mask[:nq].copy()
-    got = _run(xyz, mask, cand, cand_mask, k)
-    want = _oracle(xyz, mask, cand, cand_mask, k)
-    same = mask & (got[0] == want[0])
-    assert same[mask].mean() > 0.95
-    mu_got = (got[1:4] / np.maximum(got[0], 1))[:, same]
-    mu_want = (want[1:4] / np.maximum(want[0], 1))[:, same]
-    assert np.abs(mu_got - mu_want).max() < 2e-3
+    rel = _rel(_run(xyz, mask, cand, cand_mask, k), _oracle(xyz, mask, cand, cand_mask, k), mask)
+    assert np.median(rel) < 5e-3
+    assert rel.max() < 3e-2

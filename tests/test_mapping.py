@@ -128,7 +128,7 @@ class TestKeyframeDB:
 
 
 class TestScan2MapVariants:
-    """Parity across the TPU speed knobs (ADVICE round-2): the approximate
+    """Parity across the speed knobs (ADVICE round-2): the approximate
     k-NN path, the no-candidate (full re-search) path, and the default
     candidate-reuse path must all recover the same pose."""
 

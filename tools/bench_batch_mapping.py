@@ -10,7 +10,7 @@ device program, stepped K times with a lax.scan (states feed forward, so
 the measurement is device-resident like bench.py), then a vmapped dense
 pose-graph solve over all B graphs. Pose-checked before timing.
 
-Writes BENCH_BATCH_MAPPING.json. Usage (TPU):
+Writes BENCH_BATCH_MAPPING.json. Usage (on the card):
 python tools/bench_batch_mapping.py [--batch 16] [--steps 4]
 """
 

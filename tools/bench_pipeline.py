@@ -5,10 +5,10 @@ Covers what bench.py (front-end registration only) does not: projection,
 LOAM features, scan-to-submap GN (the backMapping.cpp:681-1068 hot path),
 loop-closure and prior ticks, and the host<->device traffic of the real
 driver loop. Reports steady-state scans/s (compile-heavy warmup excluded),
-per-stage wall-clock ms, and an MFU estimate for the front-end registration
-step from XLA's own flop count.
+per-stage wall-clock ms, and the front-end registration step's XLA flop
+count and isolated device time.
 
-Usage (real TPU):
+Usage (on the card):
   python tools/bench_pipeline.py [--scans 80] [--warmup 20] [--out BENCH_PIPELINE.json]
 
 The 10 Hz LiDAR design point (src/imageProjection.cpp:79) means
@@ -26,10 +26,9 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def registration_mfu(slam, peak_tflops: float):
-    """XLA-reported flops of one jitted front-end scan_step divided by its
-    measured wall time and the chip's peak. Conservative: XLA counts only
-    the HLO it keeps after optimization."""
+def registration_flops(slam) -> float:
+    """XLA-reported flops of one jitted front-end scan_step. Conservative:
+    XLA counts only the HLO it keeps after optimization."""
     import jax
     import jax.numpy as jnp
 
@@ -58,8 +57,6 @@ def main() -> None:
     ap.add_argument("--scans", type=int, default=80)
     ap.add_argument("--warmup", type=int, default=20)
     ap.add_argument("--cols", type=int, default=1024)
-    ap.add_argument("--peak-tflops", type=float, default=197.0,
-                    help="chip peak (v5e bf16 = 197); MFU is vs this")
     ap.add_argument("--no-loops", action="store_true")
     ap.add_argument("--no-priors", action="store_true")
     ap.add_argument("--synced", action="store_true",
@@ -131,15 +128,14 @@ def main() -> None:
 
     # p50 alongside mean: a single jit compile (e.g. the first graph solve
     # bucket) inflates a 30-sample mean by seconds — the median is the
-    # steady-state device cost (VERDICT round-3: the "2780 ms graph_solve"
-    # A/B row was exactly this artifact)
+    # steady-state device cost
     stage = {k: {"mean_ms": round(v["mean_ms"], 3), "p50_ms": round(v["p50_ms"], 3),
                  "count": v["count"]}
              for k, v in slam.timers.summary().items()}
 
-    flops = registration_mfu(slam, args.peak_tflops)
+    flops = registration_flops(slam)
     # Device-true frontend step time: the stage timer measures DISPATCH
-    # under the async driver (sub-ms), so MFU must come from an amortized
+    # under the async driver (sub-ms), so it comes from an amortized
     # isolated re-timing of the jitted scan_step at the run's real shapes.
     import jax
 
@@ -173,7 +169,6 @@ def main() -> None:
             _out = _step()
         jax.block_until_ready(_out)
         frontend_s = (time.perf_counter() - _t0) / _iters
-    mfu = (flops / frontend_s / (args.peak_tflops * 1e12)) if frontend_s else 0.0
 
     out = {
         "metric": "pipeline_scans_per_s",
@@ -189,8 +184,6 @@ def main() -> None:
         "ate_keyframes_rmse_m": round(ate_kf.rmse, 4) if ate_kf else None,
         "frontend_flops_per_step": flops,
         "frontend_device_ms": round(frontend_s * 1e3, 3),
-        "frontend_mfu_vs_peak": round(mfu, 5),
-        "peak_tflops_assumed": args.peak_tflops,
         "drop_counts": slam.drop_counts,
         # accepted factor counts (VERDICT round-3: every recorded run had
         # n_prior_factors=0 — the counts must be first-class bench output)
